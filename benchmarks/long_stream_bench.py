@@ -22,7 +22,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-DATA_DIR = "/root/reference/data/mg_tfsi_dme"
+DATA_DIR = os.environ.get(
+    "MDPT_DATA_DIR",
+    os.path.join(os.path.dirname(HERE), "data", "mg_tfsi_dme"))
 MASS = [16.0, 12.01, 1.008, 14.01, 32.06, 16.0, 12.01, 19.0, 24.305]
 REPLICAS = 10
 
@@ -30,9 +32,9 @@ REPLICAS = 10
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(HERE), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from mdproptools_tpu.utilities.compile_cache import use_compile_cache
+
+    use_compile_cache()
 
     from mdproptools_tpu.structural.rdf_cn import calc_atomic_rdf
 
@@ -68,7 +70,8 @@ def main():
 
     out = {
         "workload": ("calc_atomic_rdf end-to-end, streamed (parse -> "
-                     "device -> CSV), fast/f32, TPU v5e"),
+                     "device -> CSV), fast"),
+        "device": jax.devices()[0].device_kind,
         "frames": n_frames,
         "atoms": 10479,
         "bins": 400,

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """
-Parse-ceiling measurement (VERDICT r3 task #5): where does trajectory
+Parse-ceiling measurement: where does trajectory
 ingestion saturate at the north-star shape (41,916 atoms/frame), and
 what does the columnar cache buy?
 
-The build host has ONE core (os.cpu_count() == 1), so the thread-pooled
-parser cannot fan out and a process pool cannot either — the ceiling is
-single-core text-to-float conversion. Legs, all ms/frame over the same
+On a one-core host the thread-pooled parser cannot fan out and a
+process pool cannot either — the ceiling is single-core text-to-float
+conversion. Legs, all ms/frame over the same
 tiled 41,916-atom frames (host only, no device):
 
   raw_io       open().read() of the dump bytes — the disk/page-cache

@@ -1,4 +1,4 @@
-"""Drive every property module end-to-end on the REAL TPU backend.
+"""Drive every property module end-to-end on the GPU.
 
 Smoke-level verification that the whole public surface (all nine
 property families: atomic/molecular/intermolecular RDF+CN, number
@@ -15,12 +15,14 @@ sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "tests"))
 import numpy as np
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(HERE), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from mdproptools_tpu.utilities.compile_cache import use_compile_cache
 
-DATA = "/root/reference/data/mg_tfsi_dme"
-OUT = "/tmp/mdpt_smoke_out"
+use_compile_cache()
+
+DATA = os.environ.get(
+    "MDPT_DATA_DIR",
+    os.path.join(os.path.dirname(HERE), "data", "mg_tfsi_dme"))
+OUT = os.path.join(os.path.dirname(HERE), "bench_out", "smoke")
 os.makedirs(OUT, exist_ok=True)
 MASS = [16.0, 12.01, 1.008, 14.01, 32.06, 16.0, 12.01, 19.0, 24.305]
 ONE = f"{DATA}/dump.nvt.0.dump"

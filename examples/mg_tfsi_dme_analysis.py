@@ -3,7 +3,7 @@
 Full analysis of the bundled Mg(TFSI)2 / DME electrolyte trajectory —
 the script form of the reference's example notebook
 (``examples/mg_tfsi_dme_analysis.ipynb``), runnable end-to-end on one
-TPU chip (or CPU with JAX_PLATFORMS=cpu).
+GPU (or CPU with JAX_PLATFORMS=cpu).
 
 System: 591 DME (16 atoms) + 66 TFSI (15 atoms) + 33 Mg; 9 atom types;
 101 frames, 50k-step spacing, ~49.2 A cubic box (real units).

@@ -1,13 +1,14 @@
 """
-mdproptools_tpu: a TPU-native (JAX/XLA/Pallas) molecular-dynamics
-trajectory-analysis engine with the capabilities of molmd/mdproptools.
+mdproptools_tpu: a JAX (XLA + a Pallas pair kernel for the GPU)
+molecular-dynamics trajectory-analysis engine with the capabilities of
+molmd/mdproptools.
 
 Layer map (bottom to top):
   io/         streaming LAMMPS dump / thermo-log / XYZ / PDB parsers
               (own code; optional C++ fast path in native/)
   common/     unit registries and the System topology dataclass
-  ops/        device kernels: minimum-image PBC, tiled pair histograms
-              (Pallas + XLA one-hot-matmul), segment-sum COM, batched
+  ops/        device kernels: minimum-image PBC, pair histograms (the
+              GPU pair kernel + the plain XLA path), segment-sum COM, batched
               Wiener-Khinchin FFT correlators, host-side fits (OLS,
               curve_fit wrappers)
   structural/ RDF, coordination numbers, clusters, hydration, number density
@@ -21,7 +22,8 @@ names), so a user of mdproptools can switch imports and keep their
 notebooks. Internals are array-first and jit-compiled, not pandas loops.
 
 Precision policy: every device op takes ``precision={"fast","strict"}``.
-``fast`` runs float32 (TPU speed-of-light path); ``strict`` runs float64
+``fast`` runs float32 (the speed path; the GPU pair kernel still bins
+in float64); ``strict`` runs float64
 (bit-parity with the reference's NumPy math; used by the test suite).
 """
 
@@ -32,6 +34,5 @@ del _tune
 
 from mdproptools_tpu import common, dynamical, io, ops, parallel, structural, utilities
 from mdproptools_tpu.pipeline import analyze
-from mdproptools_tpu.utilities.device import warm_device
 
 __version__ = "0.5.0"

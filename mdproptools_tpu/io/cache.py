@@ -2,13 +2,10 @@
 Columnar trajectory cache: parse a dump pattern ONCE, serve every later
 analysis pass from per-column binary blocks at page-cache speed.
 
-Why (beyond-reference; VERDICT r3 task #5): text parsing is the
-post-RDF bottleneck of the streaming legs — the build host has ONE
-core, so neither the thread-pooled parser nor a process pool can lift
-it, and the measured MSD/GK legs at the north-star shape (10,100
-frames x 41,916 atoms) are parse-bound at ~45-47 frames/s. A LAMMPS
-dump stores every float as ~13 bytes of text that cost ~100 ns each to
-convert; the same column read back from a binary block is a pure
+Why (beyond-reference): text parsing bounds the streaming MSD/GK legs
+on a host with few cores, where neither the thread-pooled parser nor a
+process pool can lift it. A LAMMPS dump stores every float as ~13 bytes
+of text that cost ~100 ns each to convert; the same column read back from a binary block is a pure
 page-cache memcpy. The cache stores each dump column as its own
 ``.npy`` per frame block, so an analysis that needs 3 of 13 columns
 reads exactly 3/13 of the bytes — the reference has no equivalent
@@ -298,7 +295,7 @@ def iter_cached_blocks(
 
     ``skip_frames`` drops the first frames WITHOUT reading them (whole
     cached blocks are skipped by the frame index; a partial skip starts
-    mid-block) — the restart/segmentation hook (``parallel.segmented``).
+    mid-block) — the frame window of ``calc_atomic_rdf(skip_frames=)``.
     ``max_frames`` counts frames AFTER the skip."""
     from mdproptools_tpu.io.lammps_dump import (
         Trajectory,

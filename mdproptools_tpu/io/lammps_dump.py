@@ -11,7 +11,7 @@ Design goals (SURVEY.md section 7, layer 1):
 - emit fixed-shape ``(frames, atoms, columns)`` float64 arrays sorted by
   atom id, ready for ``jax.device_put``.
 
-Dump schema seen in the bundled data (BASELINE.md):
+Dump schema seen in the bundled data:
 ``id mol type mass q x y z xu yu zu ix iy iz vx vy vz fx fy fz``.
 """
 
@@ -303,7 +303,7 @@ def parse_lammps_dumps(
     ``skip_frames`` drops the first frames cheaply: files wholly inside
     the skip are counted by a raw byte scan for frame headers (IO only,
     no tokenizing) and never parsed; the boundary file parses and drops
-    its prefix — the restart/segmentation hook (``parallel.segmented``)."""
+    its prefix — the frame window of ``calc_atomic_rdf(skip_frames=)``."""
     if _files is not None:
         files = list(_files)
     else:
@@ -559,8 +559,8 @@ def iter_trajectory_blocks(
     .build_cache`` / ``mdpt cache``), never as a side effect here.
 
     ``skip_frames`` drops the first frames cheaply (cache: indexed block
-    skip; text: unparsed byte-scan file skip) — the restart/segmentation
-    hook (``parallel.segmented``). ``max_frames`` counts after the
+    skip; text: unparsed byte-scan file skip) — the frame window of
+    ``calc_atomic_rdf(skip_frames=)``. ``max_frames`` counts after the
     skip."""
     if cache and sort_by_id:
         from mdproptools_tpu.io import cache as _cache

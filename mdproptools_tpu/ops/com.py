@@ -1,7 +1,7 @@
 """
 Per-molecule center-of-mass / charge reductions via segment sums.
 
-TPU-native replacement for the reference's pandas groupby COM engine
+Device replacement for the reference's pandas groupby COM engine
 (``common/com_mols.py:58-60``, ``rdf_cn.py:218-241``,
 ``diffusion.py:83-89``): one ``segment_sum`` per quantity instead of a
 per-molecule Python/pandas apply. Works on a single frame (N, ...) or a

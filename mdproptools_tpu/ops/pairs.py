@@ -1,31 +1,29 @@
 """
-Tiled O(N^2) pair-distance kernels: histograms, cutoff counts, shell masks.
+Plain-XLA pair-distance paths: histograms, cutoff counts, shell masks,
+plus the spatial sorts and layout helpers the GPU pair kernel
+(``ops.pair_kernel``) uses.
 
-TPU-native replacement for the reference's numba pair loops
-(``rdf_cn.py:35-162``). The key reformulation: the reference's
-upper-triangle loop with "count 2 per pair" for the full RDF and
-both-orientation counting for partials (``rdf_cn.py:85-96``) is exactly
-an *ordered*-pair count —
+The reference's numba pair loops (``rdf_cn.py:35-162``) count 2 per
+unordered pair for the full RDF and both orientations for partials
+(``rdf_cn.py:85-96``): that is exactly an *ordered*-pair count —
 
     hist[ta, tb, k] = #{(p, q) : p != q, type_p = ta, type_q = tb,
                          bin(r_pq) = k, r_pq < r_cut}
 
 so full(k) = sum_{ta,tb} hist[ta,tb,k] and partial (a,b) = hist[a,b,:].
-That removes all data-dependent branching and maps onto dense tiles:
+That removes all data-dependent branching:
 
 - atoms are sorted by type code on host once per system (type codes are
-  frame-invariant), each type block padded to a multiple of the tile
-  size (``TypeLayout``);
+  frame-invariant), each type block padded to a multiple of the row
+  chunk (``TypeLayout``);
 - a ``lax.scan`` over 128-row chunks (each chunk single-typed) computes
-  minimum-image r^2 against every column type block (static slices);
-- the per-block histogram is accumulated as a radix-factored one-hot
-  matmul on the MXU: bin = hi * F + lo, h2d[hi, lo] = OH_hi^T @ OH_lo,
-  with F = 128 to match the TPU lane width.
+  minimum-image r^2 against every column type block (static slices) in
+  the reference's operation order;
+- each chunk's bins are accumulated by a segment-sum scatter.
 
-Precision: positions/dtype are parameters; ``fast`` runs float32 pair
-math with bfloat16 one-hots and float32 MXU accumulation (counts are
-exact integers < 2^24 per tile); ``strict`` runs float64 end-to-end for
-bit-parity with the reference's NumPy math.
+This is the "cpu" path of ``ops.backend.pair_backend`` and the reference
+the GPU kernel is tested against. Precision: positions/dtype are
+parameters; float64 reproduces the reference's NumPy math bit for bit.
 """
 
 from dataclasses import dataclass
@@ -36,7 +34,7 @@ import numpy as np
 
 from mdproptools_tpu.ops.pbc import minimum_image
 
-LANE = 128  # TPU lane width; also the radix-F factor and row-chunk size
+LANE = 128  # row-chunk size of the XLA scan
 
 
 @dataclass(frozen=True)
@@ -88,96 +86,6 @@ def build_type_layout(codes_1based, n_codes: int, pad: int = LANE) -> TypeLayout
     )
 
 
-def spatial_sort_perm(pos, layout: TypeLayout, lengths, cell_size=None):
-    """Per-frame spatially-sorted permutation: within each type block,
-    atoms are reordered by Morton (Z-curve) cell index so consecutive
-    128-atom tiles are spatially compact. Compact tiles let the Pallas
-    kernel's center/radius cull skip tile pairs farther than r_cut —
-    the key O(N^2) -> O(N * n_near) lever for large boxes.
-
-    Returns a (n_padded,) permutation with the same block structure as
-    ``layout.perm`` (pad slots stay -1); feed it as ``idx_r``/``idx_c``
-    and gather positions with it.
-    """
-    pos = np.asarray(pos)
-    lengths = np.asarray(lengths)
-    if cell_size is None:
-        cell_size = max(float(lengths.min()) / 16, 1e-9)
-    ncell = np.maximum((lengths / cell_size).astype(np.int64), 1)
-    cell = np.minimum(
-        (pos / cell_size).astype(np.int64), (ncell - 1)[None, :]
-    )
-    cell = np.maximum(cell, 0)
-
-    def morton(c):
-        # interleave 10 bits per axis
-        out = np.zeros(c.shape[0], np.int64)
-        for bit in range(10):
-            for ax in range(3):
-                out |= ((c[:, ax] >> bit) & 1) << (3 * bit + ax)
-        return out
-
-    code = morton(cell)
-    perm = layout.perm.copy()
-    for t in range(layout.n_codes):
-        s = layout.block_start[t]
-        n = layout.counts[t]
-        block = perm[s : s + n]
-        order = np.argsort(code[block], kind="stable")
-        perm[s : s + n] = block[order]
-    return perm
-
-
-def _morton3(cell, bits):
-    """Interleave ``bits`` bits per axis of (N, 3) int32 cell coords."""
-    out = jnp.zeros(cell.shape[0], jnp.int32)
-    for bit in range(bits):
-        for ax in range(3):
-            out = out | (((cell[:, ax] >> bit) & 1) << (3 * bit + ax))
-    return out
-
-
-def pick_ncell(n_atoms: int) -> int:
-    """Cells-per-axis for the Morton sort: aim for ~16 atoms per cell
-    (so a 128-atom tile spans ~8 adjacent cells), power of two in
-    [4, 64]."""
-    target = max(float(n_atoms) / 16.0, 1.0) ** (1.0 / 3.0)
-    return int(min(64, max(4, 2 ** round(np.log2(target)))))
-
-
-def device_sort_perm(pos, layout: TypeLayout, lengths, ncell: int = 16):
-    """On-device per-frame spatially-sorted permutation: within each type
-    block, atoms are reordered by Hilbert cell index so
-    consecutive 128-atom tiles are spatially compact and the Pallas
-    kernel's center/radius tile cull can skip far tile pairs — the
-    O(N^2) -> O(N * n_near) lever for boxes much larger than r_cut.
-
-    Runs inside jit (one ``argsort`` per type block per frame; traced
-    positions/lengths, static layout). Returns a (n_padded,) int32
-    permutation with ``layout``'s block structure, pad slots = -1.
-    Reordering only changes summation order of exact integer counts, so
-    results are bit-identical to the unsorted layout.
-    """
-    bits = max(int(ncell - 1).bit_length(), 1)
-    frac = pos[:, :3] / lengths[None, :3]
-    cell = jnp.clip((frac * ncell).astype(jnp.int32), 0, ncell - 1)
-    code = _hilbert3(cell, bits)
-    pad_key = jnp.int32(1 << 30)  # pads sort to the end of their block
-    parts = []
-    for c in range(layout.n_codes):
-        s, sz = int(layout.block_start[c]), int(layout.block_size[c])
-        if sz == 0:
-            continue
-        slot_perm = layout.perm[s : s + sz]  # host constants
-        base = jnp.asarray(np.maximum(slot_perm, 0))
-        keys = jnp.where(jnp.asarray(slot_perm >= 0), code[base], pad_key)
-        order = jnp.argsort(keys)
-        parts.append(jnp.asarray(slot_perm, jnp.int32)[order])
-    if not parts:
-        return jnp.asarray(layout.perm, jnp.int32)
-    return jnp.concatenate(parts)
-
-
 def gather_padded_perm(values, perm):
     """Gather with an explicit (possibly per-frame) padded permutation."""
     idx = jnp.maximum(perm, 0)
@@ -198,10 +106,23 @@ def gather_padded(values, layout: TypeLayout):
 
 def _pair_rsq(pos_r, pos_c, lengths):
     """Minimum-image squared distances between row tile (CR, 3) and
-    column block (NC, 3) -> (CR, NC)."""
+    column block (NC, 3) -> (CR, NC), summed (dx^2 + dy^2) + dz^2 as the
+    reference does (a reduce over the axis would let XLA choose its own
+    order). XLA's CPU and GPU backends contract ``a*b + c`` into an FMA;
+    a runtime zero added to each square (at worst fma(d, d, 0), the
+    correctly rounded square) keeps every operation IEEE-rounded."""
     d = pos_r[:, None, :] - pos_c[None, :, :]
     d = minimum_image(d, lengths)
-    return jnp.sum(d * d, axis=-1)
+    zero = lengths[0] - lengths[0]
+    sq = [d[..., k] * d[..., k] + zero for k in range(3)]
+    return (sq[0] + sq[1]) + sq[2]
+
+
+def _divisor(value, dtype):
+    """A divisor XLA cannot see as a constant: XLA rewrites division by a
+    constant into multiplication by its rounded reciprocal, which bins
+    some pairs differently from the reference's true division."""
+    return jax.lax.optimization_barrier(jnp.asarray(value, dtype))
 
 
 def pair_hist(
@@ -215,9 +136,6 @@ def pair_hist(
     r_cut: float,
     exclude_self: bool,
     dtype=jnp.float32,
-    onehot_dtype=None,
-    method: str = "auto",
-    interpret: bool = False,
 ):
     """Ordered-pair distance histogram per (row code, col code).
 
@@ -229,9 +147,6 @@ def pair_hist(
         kept when rsq < r_cut^2 and bin < n_bins (``rdf_cn.py:62-69``).
       exclude_self: drop pairs with identical original atom index (the
         atom-atom case where pos_r and pos_c are the same set).
-      method: 'onehot' = radix-factored one-hot matmul (MXU path, default
-        on TPU float32); 'scatter' = segment-sum scatter-add (default on
-        CPU and in strict float64 mode); 'auto' picks per backend.
     Returns:
       (n_codes_r, n_codes_c, n_bins) histogram, dtype float32/float64.
     """
@@ -243,7 +158,6 @@ def pair_hist(
         pos_r, idx_r, chunk_codes, pos_c, layout_c,
         n_codes_r=layout_r.n_codes, lengths=lengths, bin_size=bin_size,
         n_bins=n_bins, r_cut=r_cut, exclude_self=exclude_self, dtype=dtype,
-        onehot_dtype=onehot_dtype, method=method, interpret=interpret,
     )
 
 
@@ -260,55 +174,16 @@ def pair_hist_rows(
     r_cut: float = 10.0,
     exclude_self: bool = False,
     dtype=jnp.float32,
-    onehot_dtype=None,
-    method: str = "auto",
-    idx_c=None,
-    triangle: bool = False,
-    row_tiles=None,
-    interpret: bool = False,
-    compact_cols: bool = False,
 ):
     """Row-chunk-level ordered-pair histogram. ``pair_hist`` wraps this
     with the full row set; the sharded path (``mdproptools_tpu.parallel``)
-    feeds each device its row-chunk shard and psums the result.
-
-    Methods: 'pallas' (fused VMEM kernel, TPU f32 default), 'onehot'
-    (XLA radix one-hot matmul), 'scatter' (segment-sum; CPU/f64 default).
-    ``idx_c`` overrides the column permutation (per-frame spatial sort).
-    ``triangle`` halves the self-case pair work by tile symmetry
-    (pallas/scatter; rows must be the full column set, not a shard).
+    feeds each device its row-chunk shard and psums the result. Each
+    chunk's bins are summed by a segment-sum over bin ids, with every
+    invalid pair sent to one overflow bin that is dropped.
     """
-    if method == "auto":
-        on_tpu = jax.default_backend() not in ("cpu",)
-        if on_tpu and dtype == jnp.float32 and n_bins <= 1024:
-            method = "pallas"
-        elif on_tpu and dtype == jnp.float32:
-            method = "onehot"
-        else:
-            method = "scatter"
-    if method == "pallas":
-        from mdproptools_tpu.ops.pairs_pallas import pair_hist_rows_pallas
-
-        return pair_hist_rows_pallas(
-            pos_r, idx_r, chunk_codes, pos_c, layout_c, n_codes_r,
-            lengths, bin_size, n_bins, r_cut, exclude_self, idx_c=idx_c,
-            triangle=triangle, row_tiles=row_tiles, interpret=interpret,
-            compact_cols=compact_cols,
-        )
-    if triangle:
-        raise ValueError(f"triangle mode requires the pallas path, "
-                         f"got method={method!r}")
-    if onehot_dtype is None:
-        onehot_dtype = jnp.bfloat16 if dtype == jnp.float32 else dtype
-    F = LANE
-    H = -(-n_bins // F)  # radix-hi size
-
     pos_c = pos_c.astype(dtype)
     lengths = jnp.asarray(lengths, dtype)
-    if idx_c is None:
-        idx_c = jnp.asarray(layout_c.perm)
-    else:
-        idx_c = jnp.asarray(idx_c)
+    idx_c = jnp.asarray(layout_c.perm)
     r_cut_sq = jnp.asarray(r_cut * r_cut, dtype)
 
     # static column-block geometry
@@ -327,40 +202,16 @@ def pair_hist_rows(
             # bin = trunc(sqrt(rsq) / ddr), the reference's binning rule
             # (rdf_cn.py:68); division kept (not reciprocal-multiply) so the
             # strict float64 path is bit-identical to the NumPy oracle.
-            b = (jnp.sqrt(rsq) / jnp.asarray(bin_size, dtype)).astype(jnp.int32)
+            b = (jnp.sqrt(rsq) / _divisor(bin_size, dtype)).astype(jnp.int32)
             valid = (rsq < r_cut_sq) & (b < n_bins)
             valid &= (i_r[:, None] >= 0) & (i_c[None, :] >= 0)
             if exclude_self:
                 valid &= i_r[:, None] != i_c[None, :]
-            if method == "onehot":
-                hi = b // F
-                lo = jnp.where(valid, b - hi * F, F)  # F -> zero one-hot row
-                # int8 one-hots halve the HBM traffic of the materialized
-                # (P, F) matrices (the dominant cost of this path on TPU);
-                # int8 x int8 -> int32 MXU accumulation is exact for counts
-                use_int8 = dtype == jnp.float32
-                oh_dt = jnp.int8 if use_int8 else onehot_dtype
-                acc_dt = jnp.int32 if use_int8 else (
-                    jnp.float32 if dtype == jnp.float32 else dtype)
-                oh_hi = jax.nn.one_hot(
-                    jnp.where(valid.reshape(-1), hi.reshape(-1), H),
-                    H,
-                    dtype=oh_dt,
-                )
-                oh_lo = jax.nn.one_hot(lo.reshape(-1), F, dtype=oh_dt)
-                h2d = jax.lax.dot_general(
-                    oh_hi,
-                    oh_lo,
-                    dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=acc_dt,
-                )
-                h1d = h2d.reshape(-1)[:n_bins]
-            else:  # scatter: segment-sum over bin ids, overflow bin dropped
-                ids = jnp.where(valid, b, n_bins).reshape(-1)
-                h1d = jax.ops.segment_sum(
-                    jnp.ones(ids.shape, hist.dtype), ids,
-                    num_segments=n_bins + 1,
-                )[:n_bins]
+            ids = jnp.where(valid, b, n_bins).reshape(-1)
+            h1d = jax.ops.segment_sum(
+                jnp.ones(ids.shape, hist.dtype), ids,
+                num_segments=n_bins + 1,
+            )[:n_bins]
             hist = hist.at[ta, tb].add(h1d.astype(hist.dtype))
         return hist, None
 
@@ -437,43 +288,25 @@ def shell_mask(pos_a, pos_b, lengths, r_in, r_out):
     return (rsq > r_in * r_in) & (rsq <= r_out * r_out)
 
 
-def device_sort_global(pos, n_atoms: int, n_padded: int, lengths,
-                       ncell: int = 16):
-    """On-device GLOBAL Morton-sorted padded permutation (no type
-    blocks): returns (n_padded,) int32, pad slots -1. Mixed-type tiles
-    keep full density, so 128-atom Hilbert tiles are spatially compact
-    (radius ~ 1.15 * (128/rho)^(1/3)) regardless of species imbalance —
-    per-type blocks give minority species box-sized tiles that defeat
-    the cull entirely."""
-    bits = max(int(ncell - 1).bit_length(), 1)
-    frac = pos[:, :3] / lengths[None, :3]
-    cell = jnp.clip((frac * ncell).astype(jnp.int32), 0, ncell - 1)
-    code = _hilbert3(cell, bits)
-    pad_key = jnp.int32(1 << 30)
-    keys = jnp.concatenate(
-        [code, jnp.full((n_padded - n_atoms,), pad_key, jnp.int32)])
-    order = jnp.argsort(keys).astype(jnp.int32)
-    return jnp.where(order < n_atoms, order, -1)
-
-
-def device_sort_orb(pos, n_atoms: int, n_padded: int, lengths=None):
-    """On-device GLOBAL balanced-ORB permutation (recursive 128-aligned
-    median bisection): returns (n_padded,) int32, pad slots -1.
+def device_sort_orb(pos, n_atoms: int, n_padded: int, lengths=None,
+                    leaf: int = LANE):
+    """On-device GLOBAL balanced-ORB permutation (recursive
+    ``leaf``-aligned median bisection): returns (n_padded,) int32, pad
+    slots -1.
 
     Each level sorts every segment along its own longest axis and splits
-    at the real-atom median rounded to a LANE multiple, so (a) tiles are
-    axis-aligned BOXES — no space-filling-curve jumps, which tightens
-    the bounding-sphere tail the kernel cull sees (a single fat tile
-    makes every tile pair touching it kept) — and (b) pads sink to the
+    at the real-atom median rounded to a ``leaf`` multiple, so (a) the
+    ``leaf``-atom tiles are axis-aligned BOXES, which keeps the bounding
+    spheres the pair kernel's cull sees tight (a single fat tile makes
+    every tile pair touching it kept), and (b) pads sink to the
     rightmost leaf, keeping every other tile fully dense. ``lengths`` is
-    accepted for interface parity with ``device_sort_global`` (ORB boxes
-    never straddle the periodic boundary; the cull's torus metric covers
-    cross-boundary proximity). Like the Hilbert sort, reordering only
-    changes summation order of exact integer counts: results are
+    unused (ORB boxes never straddle the periodic boundary; the cull's
+    torus metric covers cross-boundary proximity). Reordering only
+    changes the summation order of exact integer counts: results are
     bit-identical to any other layout.
     """
     del lengths
-    n_tiles = max(n_padded // LANE, 1)
+    n_tiles = max(n_padded // leaf, 1)
     levels = max(int(np.ceil(np.log2(n_tiles))), 0)
     qlev = jnp.int32(1 << 20)  # within-segment key quantization
     pos32 = pos[:, :3].astype(jnp.float32)
@@ -501,116 +334,42 @@ def device_sort_orb(pos, n_atoms: int, n_padded: int, lengths=None):
                      0, qlev - 1)
         q = jnp.where(valid, q, qlev)  # pads last within their segment
         seg, q, idx = jax.lax.sort((seg, q, idx), num_keys=2)
-        # LANE-aligned split at the real-atom median; reals sort before
+        # leaf-aligned split at the real-atom median; reals sort before
         # pads, so a split <= real count gives an all-real left child
         ones = jnp.ones(n_padded, jnp.int32)
         slots = jax.ops.segment_sum(ones, seg, num_segments=nseg)
         reals = jax.ops.segment_sum(
             (idx < n_atoms).astype(jnp.int32), seg, num_segments=nseg)
-        half = (reals.astype(jnp.float32) / (2 * LANE)
-                + 0.5).astype(jnp.int32) * LANE
-        split = jnp.clip(half, LANE, jnp.maximum(slots - LANE, LANE))
+        half = (reals.astype(jnp.float32) / (2 * leaf)
+                + 0.5).astype(jnp.int32) * leaf
+        split = jnp.clip(half, leaf, jnp.maximum(slots - leaf, leaf))
         starts = jnp.concatenate(
             [jnp.zeros(1, jnp.int32),
              jnp.cumsum(slots)[:-1].astype(jnp.int32)])
         rank = jnp.arange(n_padded, dtype=jnp.int32) - starts[seg]
-        right = (slots[seg] >= 2 * LANE) & (rank >= split[seg])
+        right = (slots[seg] >= 2 * leaf) & (rank >= split[seg])
         seg = 2 * seg + right.astype(jnp.int32)
     return jnp.where(idx < n_atoms, idx, -1)
 
 
-def host_sort_orb(pos, n_atoms: int, n_padded: int) -> np.ndarray:
-    """Host (NumPy) balanced-ORB permutation with the same tile-quality
-    contract as ``device_sort_orb``: recursive LANE-aligned median
-    bisection along each segment's longest axis, pads sinking to the
-    rightmost leaf.
-
-    Why a host twin exists: exactness never depends on the permutation
-    (the kernels' validity masks and pair geometry use the permuted
-    CURRENT positions — any layout sums the same exact integer counts),
-    but the device version costs ~log2(n_tiles) sequential ``lax.sort``
-    rounds per frame, measured at ~29 ms of the 42k-atom RDF step on
-    v5e (benchmarks/profile_42k.json). The streamed single-chip path
-    computes the permutation here instead — O(n) ``argpartition`` per
-    level, a few ms on host — overlapped with device compute by the
-    double-buffered block dispatch. Returns (n_padded,) int32, pad
-    slots -1.
-    """
-    pos3 = np.ascontiguousarray(np.asarray(pos)[:, :3], np.float32)
-    out = np.full(n_padded, -1, np.int32)
-    stack = [(np.arange(n_atoms, dtype=np.int32), 0, n_padded)]
-    while stack:
-        ids, start, slots = stack.pop()
-        n = ids.size
-        if slots <= LANE or n == 0:
-            out[start:start + n] = ids
-            continue
-        p = pos3[ids]
-        ax = int(np.argmax(p.max(axis=0) - p.min(axis=0)))
-        # LANE-aligned split at the real-atom median (same rounding as
-        # device_sort_orb); left child takes the k smallest along ax
-        half = int(n / (2 * LANE) + 0.5) * LANE
-        split = min(max(half, LANE), max(slots - LANE, LANE))
-        k = min(split, n)
-        if 0 < k < n:
-            sel = np.argpartition(p[:, ax], k - 1)
-            ids = ids[sel]
-        stack.append((ids[:k], start, split))
-        stack.append((ids[k:], start + split, slots - split))
-    return out
-
-
-def orb_sorted_side(pos, n_atoms: int, n_padded: int, lengths, codes0):
-    """ORB-sort one side for the mixed-tile relation kernels: returns
-    (positions (n_padded, 3) gathered in ORB order, perm (pads -1),
-    float32 type codes with -1.0 at pad slots). ``codes0`` is the
-    (n_atoms,) 0-based float32 code array. The single definition keeps
-    the pad conventions (-1 perm, -1.0 type sentinel, clamped gather)
-    identical across the RDF, CN, and sharded-mesh callers."""
-    pm = device_sort_orb(pos, n_atoms, n_padded, lengths)
+def orb_sorted_side(pos, n_atoms: int, n_padded: int, lengths, codes0,
+                    leaf: int = LANE, perm=None):
+    """ORB-sort one side for the pair kernel: returns (positions
+    (n_padded, 3) gathered in ORB order, perm (pads -1), int32 type codes
+    with -1 at pad slots). ``codes0`` is the (n_atoms,) 0-based int32
+    code array; ``perm`` a precomputed (n_padded,) permutation to use
+    instead of sorting on the device."""
+    pm = device_sort_orb(pos, n_atoms, n_padded, lengths, leaf) \
+        if perm is None else perm
     pr = gather_padded_perm(pos, pm)
-    ty = jnp.where(pm >= 0, codes0[jnp.maximum(pm, 0)], -1.0)
+    ty = jnp.where(pm >= 0, codes0[jnp.maximum(pm, 0)], -1)
     return pr, pm, ty
 
 
 def project_relations(hist, relations, with_full: bool):
     """Project a (n_codes_r, n_codes_c, n_bins) ordered-pair histogram
-    onto (full, (R, n_bins)) rows — the scatter-path oracle for the
-    relation-projected Pallas kernel. ``relations`` is (R, 2) 1-based."""
+    onto (full, (R, n_bins)) rows — what the pair kernel returns.
+    ``relations`` is (R, 2) 1-based."""
     rels = jnp.stack([hist[int(a) - 1, int(b) - 1] for a, b in relations])
     full = hist.sum(axis=(0, 1)) if with_full else None
     return full, rels
-
-
-def _hilbert3(cell, bits):
-    """Vectorized 3-D Hilbert index (Skilling's transpose algorithm) of
-    (N, 3) int32 cell coords with ``bits`` bits per axis. Consecutive
-    Hilbert cells are always face-adjacent, so equal-count tiles cut
-    from the curve are markedly more compact than Morton/Z-order tiles
-    (Z-curve octant jumps fatten tiles ~1.6x -> ~1.0x of the ideal
-    cube radius), which directly tightens the pair-kernel tile cull."""
-    X = [cell[:, 0], cell[:, 1], cell[:, 2]]
-    M = jnp.int32(1 << (bits - 1))
-    Q = 1 << (bits - 1)
-    while Q > 1:
-        P = jnp.int32(Q - 1)
-        for i in range(3):
-            cond = (X[i] & Q) != 0
-            t = jnp.where(cond, 0, (X[0] ^ X[i]) & P)
-            X[0] = jnp.where(cond, X[0] ^ P, X[0]) ^ t
-            if i:
-                X[i] = X[i] ^ t
-        Q >>= 1
-    X[1] = X[1] ^ X[0]
-    X[2] = X[2] ^ X[1]
-    t = jnp.zeros_like(X[0])
-    Q = 1 << (bits - 1)
-    while Q > 1:
-        t = jnp.where((X[2] & Q) != 0, t ^ jnp.int32(Q - 1), t)
-        Q >>= 1
-    X = [x ^ t for x in X]
-    idx = jnp.zeros_like(X[0])
-    for b in range(bits):
-        for i in range(3):
-            idx = idx | (((X[i] >> b) & 1) << (3 * b + (2 - i)))
-    return idx

@@ -1,6 +1,6 @@
 """
-Precision policy: ``fast`` (float32 device math, bfloat16 one-hots,
-float32 accumulation — the TPU speed path) vs ``strict`` (float64
+Precision policy: ``fast`` (float32 device math, float32 accumulation
+— the speed path) vs ``strict`` (float64
 end-to-end — bit-parity with the reference's NumPy math; how the test
 suite runs, on the CPU backend with x64 enabled).
 """

@@ -14,9 +14,9 @@ equivalents are a 2-D ``jax.sharding.Mesh``:
 Inside ``shard_map`` each device holds a (frames-shard, row-chunk-shard)
 block of positions, all-gathers the frame's full atom set along the
 ``atoms`` axis (columns), computes its partial ordered-pair histogram,
-and the result is ``psum``-reduced over both axes — collectives ride ICI,
-never the host. MSD reductions and charge-flux segment sums shard over
-``frames`` only.
+and the result is ``psum``-reduced over both axes — collectives stay
+on the devices (NCCL between cards), never the host. MSD reductions and
+charge-flux segment sums shard over ``frames`` only.
 """
 
 from functools import partial
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from mdproptools_tpu.ops import pair_kernel
 from mdproptools_tpu.ops import pairs as pair_ops
 
 import inspect
@@ -38,7 +39,7 @@ except ImportError:  # pragma: no cover - older jax
 
 # replication-check kwarg renamed check_rep -> check_vma across JAX
 # versions; a pallas_call inside shard_map cannot declare its varying
-# mesh axes, so sharded kernels need the check off
+# mesh axes, so the sharded kernel runners need the check off
 _CHECK_KW = ("check_vma" if "check_vma"
              in inspect.signature(_shard_map).parameters else "check_rep")
 
@@ -73,29 +74,17 @@ def sharded_rdf_hist(
     mesh: Mesh,
     exclude_self: bool = True,
     dtype=jnp.float32,
-    triangle: bool = False,
-    method: str = "auto",
-    interpret: bool = False,
 ):
-    """Frame- and row-sharded ordered-pair histogram sum over all frames:
-    returns the fully-reduced (n_codes, n_codes, n_bins) histogram
-    (already summed over frames), replicated on every device.
+    """Frame- and row-sharded dense (plain XLA) ordered-pair histogram
+    sum over all frames: returns the fully-reduced (n_codes, n_codes,
+    n_bins) histogram (already summed over frames), replicated on every
+    device.
 
     Sharding: pos rows are viewed as (T, n_chunks, LANE, 3); T shards
     over ``frames``, n_chunks over ``atoms``. Each device all-gathers the
     frame's columns along ``atoms`` and computes its row-chunk partial
     histogram; psum over both axes reduces.
-
-    ``triangle=True`` (TPU Pallas path, exclude_self only) halves the
-    pair work via the cyclic-half tile rule: each shard passes its
-    GLOBAL positions in the gathered column order as ``row_tiles``, so
-    every unordered tile pair is counted exactly once across shards with
-    near-equal per-shard work, and each shard's result is already
-    mirrored (hist + hist^T is linear, so the psum of mirrored partials
-    is the mirrored total).
     """
-    if triangle and not exclude_self:
-        raise ValueError("sharded triangle requires exclude_self=True")
     T, n_padded, _ = pos.shape
     n_chunks = n_padded // pair_ops.LANE
     pos4 = pos.astype(dtype).reshape(T, n_chunks, pair_ops.LANE, 3)
@@ -127,22 +116,12 @@ def sharded_rdf_hist(
         P("atoms", None),  # idx_r
         P("atoms"),  # chunk_codes
     )
-    out_spec = P()  # fully reduced / replicated
 
-    # check_vma=False: a pallas_call inside shard_map cannot declare its
-    # varying-mesh-axes; replication of the result is established by the
-    # explicit psum over both axes below
-    @partial(shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
-             check_vma=False)
+    @partial(shard_map, mesh=mesh, in_specs=in_specs, out_specs=P())
     def run(pos_local, len_local, idx_local, codes_local):
         # columns: full frame = all row shards gathered along 'atoms'
         cols = jax.lax.all_gather(pos_local, "atoms", axis=1, tiled=True)
-        # cols: (T_loc, n_chunks, LANE, 3) -> (T_loc, n_padded, 3)
         cols = cols.reshape(pos_local.shape[0], -1, 3)
-        n_loc = pos_local.shape[1]
-        # this shard's GLOBAL tile positions in the gathered column order
-        row_tiles = (jax.lax.axis_index("atoms") * n_loc
-                     + jnp.arange(n_loc, dtype=jnp.int32))
 
         def frame_step(acc, xs):
             p_loc, p_cols, L = xs
@@ -150,9 +129,7 @@ def sharded_rdf_hist(
                 p_loc, idx_local, codes_local, p_cols, layout,
                 n_codes_r=layout.n_codes, lengths=L, bin_size=bin_size,
                 n_bins=n_bins, r_cut=r_cut, exclude_self=exclude_self,
-                dtype=dtype, triangle=triangle,
-                row_tiles=row_tiles if triangle else None,
-                method=method, interpret=interpret,
+                dtype=dtype,
             )
             return acc + h, None
 
@@ -162,16 +139,52 @@ def sharded_rdf_hist(
         acc, _ = jax.lax.scan(frame_step, acc0,
                               (pos_local, cols, len_local))
         acc = jax.lax.psum(acc, "atoms")
-        acc = jax.lax.psum(acc, "frames")
-        return acc
+        return jax.lax.psum(acc, "frames")
 
     return run(pos4, jnp.asarray(lengths, dtype), idx_r, chunk_codes)
+
+
+def _sharded_kernel_frame(n_atoms, codes0, relations0, bin_size, n_bins,
+                          r_cut, with_full, mesh, interpret):
+    """Per-frame body of the row-sharded kernel runners: every device
+    runs the SAME deterministic ORB sort on the replicated frame (cheap
+    beside the kernel), takes the row tiles the ``atoms`` axis assigns
+    it and passes their GLOBAL tile indices as ``row_tiles``, so the
+    triangle rule (row tile <= column tile) counts every unordered tile
+    pair exactly once across shards. Returns ``frame(p, L) -> (full,
+    rels)`` partial counts, to be psummed over both axes."""
+    tile = pair_kernel.TILE
+    n_atoms_axis = mesh.devices.shape[1]
+    n_tiles = -(-n_atoms // tile)
+    n_tiles += (-n_tiles) % n_atoms_axis
+    n_pad = n_tiles * tile
+    per_shard = n_tiles // n_atoms_axis
+    codes0 = jnp.asarray(np.asarray(codes0), jnp.int32)
+    relations0 = np.asarray(relations0, np.int64)
+
+    def frame(p, L):
+        a_idx = jax.lax.axis_index("atoms")
+        start = a_idx * per_shard * tile
+        row_tiles = a_idx * per_shard + jnp.arange(per_shard, dtype=jnp.int32)
+        pr, pm, ty = pair_ops.orb_sorted_side(p, n_atoms, n_pad, L, codes0,
+                                              leaf=tile)
+
+        def rows(x):
+            return jax.lax.dynamic_slice_in_dim(x, start, per_shard * tile,
+                                                axis=0)
+
+        return pair_kernel.pair_hist_relations(
+            rows(pr), rows(pm), rows(ty), pr, pm, ty, relations0, L,
+            bin_size, n_bins, r_cut, exclude_self=True, with_full=with_full,
+            triangle=True, row_tiles=row_tiles, interpret=interpret)
+
+    return frame
 
 
 def sharded_rdf_relations(
     pos,  # (T, N, 3) raw per-frame positions (unsorted, N real atoms)
     codes0,  # (N,) 0-based type codes (frame-invariant)
-    relations0,  # (R, 2) 0-based relations (distinct pairs)
+    relations0,  # (R, 2) 0-based relations
     lengths,  # (T, 3)
     bin_size: float,
     n_bins: int,
@@ -181,69 +194,33 @@ def sharded_rdf_relations(
     dtype=jnp.float32,
     interpret: bool = False,
 ):
-    """Frame- and row-sharded LARGE-N fast path: the global balanced-ORB
-    sort + relation-projected Pallas kernel (tile cull + column
-    compaction), summed over all frames. Returns (full (n_bins,) or
+    """Frame- and row-sharded pair-kernel histogram (ORB sort + tile
+    cull + triangle), summed over all frames. Returns (full (n_bins,) or
     None, rels (R, n_bins)), already reduced over both mesh axes and
     replicated. Atom-atom self case, exclude_self=True (the sharded
-    triangle rule requires it).
-
-    Sharding: frames shard over ``"frames"``; within a frame every
-    device runs the SAME deterministic ORB sort on the replicated frame
-    (cheap relative to the kernel) and computes the row-chunk slice the
-    ``"atoms"`` axis assigns it, passing the slice's global tile indices
-    as ``row_tiles`` so the cyclic-half triangle rule counts every
-    unordered tile pair exactly once across shards; partial histograms
-    psum over ICI.
-    """
-    from mdproptools_tpu.ops.pairs_pallas import pair_hist_relations_pallas
-
+    triangle rule requires it)."""
     T, n_atoms, _ = pos.shape
-    n_rel = int(np.asarray(relations0).shape[0])
-    n_frames_axis, n_atoms_axis = mesh.devices.shape
+    n_frames_axis = mesh.devices.shape[0]
     if T % n_frames_axis:
         raise ValueError(
             f"frame count {T} must be divisible by the frames mesh axis "
             f"size {n_frames_axis}; pad or trim the frame block")
-    n_chunks = -(-n_atoms // pair_ops.LANE)
-    n_chunks_p = n_chunks + ((-n_chunks) % n_atoms_axis)
-    n_pad = n_chunks_p * pair_ops.LANE
-    chunks_per_shard = n_chunks_p // n_atoms_axis
-    codes0_f = jnp.asarray(np.asarray(codes0), jnp.float32)
-    relations0 = np.asarray(relations0, np.int64)
+    frame = _sharded_kernel_frame(n_atoms, codes0, relations0, bin_size,
+                                  n_bins, r_cut, with_full, mesh, interpret)
+    n_rel = int(np.asarray(relations0).shape[0])
 
-    in_specs = (P("frames", None, None), P("frames", None))
-    out_specs = (P(), P())
-
-    @partial(shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-             check_vma=False)
+    @partial(shard_map, mesh=mesh,
+             in_specs=(P("frames", None, None), P("frames", None)),
+             out_specs=(P(), P()), check_vma=False)
     def run(pos_local, len_local):
-        a_idx = jax.lax.axis_index("atoms")
-        start = a_idx * chunks_per_shard * pair_ops.LANE
-        row_tiles = (a_idx * chunks_per_shard
-                     + jnp.arange(chunks_per_shard, dtype=jnp.int32))
-
         def frame_step(acc, xs):
-            p, L = xs
-            pr, pm, ty = pair_ops.orb_sorted_side(
-                p.astype(jnp.float32), n_atoms, n_pad, L, codes0_f)
-            rows = jax.lax.dynamic_slice_in_dim(
-                pr, start, chunks_per_shard * pair_ops.LANE, axis=0)
-            idxr = jax.lax.dynamic_slice_in_dim(
-                pm, start, chunks_per_shard * pair_ops.LANE, axis=0)
-            tyr = jax.lax.dynamic_slice_in_dim(
-                ty, start, chunks_per_shard * pair_ops.LANE, axis=0)
-            full, rels = pair_hist_relations_pallas(
-                rows, idxr, tyr, pr, pm, ty, relations0, L, bin_size,
-                n_bins, r_cut, exclude_self=True, with_full=with_full,
-                triangle=True, row_tiles=row_tiles, interpret=interpret)
+            full, rels = frame(*xs)
             acc_full, acc_rels = acc
             if with_full:
                 acc_full = acc_full + full
             return (acc_full, acc_rels + rels), None
 
-        acc0 = (jnp.zeros(n_bins, jnp.float32),
-                jnp.zeros((n_rel, n_bins), jnp.float32))
+        acc0 = (jnp.zeros(n_bins, dtype), jnp.zeros((n_rel, n_bins), dtype))
         (acc_full, acc_rels), _ = jax.lax.scan(
             frame_step, acc0, (pos_local, len_local))
         for ax in ("atoms", "frames"):
@@ -257,7 +234,7 @@ def sharded_rdf_relations(
 
 def make_sharded_relations_runner(
     codes0,  # (N,) 0-based type codes (frame-invariant)
-    relations0,  # (R, 2) 0-based relations (distinct pairs)
+    relations0,  # (R, 2) 0-based relations
     n_atoms: int,
     bin_size: float,
     n_bins: int,
@@ -275,58 +252,30 @@ def make_sharded_relations_runner(
     replicated (same contract as ``rdf_cn._make_block_runner``, so
     ``rdf_cn._rdf_mean`` streams blocks through it unchanged).
 
-    Same kernel/sharding as :func:`sharded_rdf_relations` (global ORB
-    sort per frame, cyclic-half triangle row slices, tile cull + column
-    compaction), but per-frame normalization happens INSIDE the scan —
-    valid under sharding because the normalization is linear in the
-    counts, so normalize-then-psum equals psum-then-normalize. Padded
-    frames carry weight 0. Self case, exclude_self=True only (the
-    sharded triangle rule requires it)."""
-    from mdproptools_tpu.ops.pairs_pallas import pair_hist_relations_pallas
-
-    n_frames_axis, n_atoms_axis = mesh.devices.shape
-    n_chunks = -(-n_atoms // pair_ops.LANE)
-    n_chunks_p = n_chunks + ((-n_chunks) % n_atoms_axis)
-    n_pad = n_chunks_p * pair_ops.LANE
-    chunks_per_shard = n_chunks_p // n_atoms_axis
-    codes0_f = jnp.asarray(np.asarray(codes0), jnp.float32)
-    relations0 = np.asarray(relations0, np.int64)
-    n_rel = int(relations0.shape[0])
-    nrows_out = n_rel + (1 if with_full else 0)
-
-    in_specs = (P("frames", None, None), P("frames", None), P("frames"))
-    out_specs = P()
+    Same kernel/sharding as :func:`sharded_rdf_relations`, but per-frame
+    normalization happens INSIDE the scan — valid under sharding because
+    the normalization is linear in the counts, so normalize-then-psum
+    equals psum-then-normalize. Padded frames carry weight 0. Self case,
+    exclude_self=True only."""
+    frame = _sharded_kernel_frame(n_atoms, codes0, relations0, bin_size,
+                                  n_bins, r_cut, with_full, mesh, interpret)
+    nrows_out = int(np.asarray(relations0).shape[0]) + (1 if with_full else 0)
 
     @jax.jit
-    @partial(shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-             check_vma=False)
+    @partial(shard_map, mesh=mesh,
+             in_specs=(P("frames", None, None), P("frames", None),
+                       P("frames")),
+             out_specs=P(), check_vma=False)
     def run(pos_local, len_local, w_local):
-        a_idx = jax.lax.axis_index("atoms")
-        start = a_idx * chunks_per_shard * pair_ops.LANE
-        row_tiles = (a_idx * chunks_per_shard
-                     + jnp.arange(chunks_per_shard, dtype=jnp.int32))
-
         def frame_step(acc, xs):
             p, L, w = xs
-            pr, pm, ty = pair_ops.orb_sorted_side(
-                p.astype(jnp.float32), n_atoms, n_pad, L, codes0_f)
-            rows = jax.lax.dynamic_slice_in_dim(
-                pr, start, chunks_per_shard * pair_ops.LANE, axis=0)
-            idxr = jax.lax.dynamic_slice_in_dim(
-                pm, start, chunks_per_shard * pair_ops.LANE, axis=0)
-            tyr = jax.lax.dynamic_slice_in_dim(
-                ty, start, chunks_per_shard * pair_ops.LANE, axis=0)
-            full, rels = pair_hist_relations_pallas(
-                rows, idxr, tyr, pr, pm, ty, relations0, L, bin_size,
-                n_bins, r_cut, exclude_self=True, with_full=with_full,
-                triangle=True, row_tiles=row_tiles, interpret=interpret)
+            full, rels = frame(p, L)
             return acc + w * normalize(full, rels, L), None
 
-        acc0 = jnp.zeros((nrows_out, n_bins), jnp.float32)
-        acc0 = acc0 + (pos_local[0, 0, 0] * 0).astype(acc0.dtype)
+        acc0 = jnp.zeros((nrows_out, n_bins), dtype)
         acc, _ = jax.lax.scan(
             frame_step, acc0,
-            (pos_local.astype(dtype), len_local, w_local))
+            (pos_local.astype(dtype), len_local.astype(dtype), w_local))
         for ax in ("atoms", "frames"):
             acc = jax.lax.psum(acc, ax)
         return acc

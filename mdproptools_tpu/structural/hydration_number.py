@@ -10,7 +10,7 @@ vector and the water bisector vector (H1 + H2 - 2 O); the hydration
 factor is the per-cation fraction of cosines < -0.72, averaged over
 cations then frames.
 
-TPU-native internals: the reference's per-frame ``mp.Pool`` fan-out
+Device internals: the reference's per-frame ``mp.Pool`` fan-out
 (hydration_number.py:86-89) with a per-cation pandas loop becomes ONE
 jitted device program per frame block — a (frames, cations, waters)
 minimum-image cosine tensor plus the fully on-device hydration factor —
@@ -183,7 +183,9 @@ class _HydrationStream:
                 d = minimum_image(cat[:, None, :] - o[None, :, :], L)
                 rsq = jnp.sum(d * d, axis=2)  # (C, W)
                 within = rsq < rc2
-                dot = jnp.einsum("cwk,wk->cw", d, vec)
+                # elementwise, not einsum: a float32 contraction may run
+                # in TF32 on a GPU and flip the cos < -0.72 decisions
+                dot = jnp.sum(d * vec[None, :, :], axis=2)
                 denom = (jnp.sqrt(rsq)
                          * jnp.linalg.norm(vec, axis=1)[None, :])
                 cos = dot / jnp.where(denom == 0, 1.0, denom)

@@ -20,7 +20,7 @@ Fixes vs the reference (documented divergences):
 
 Altitude decision (deliberate): the per-frame work is ONE O(N) masked
 binning pass with data-dependent failure semantics (the IndexError
-above) and no reuse across frames — there is no MXU/VPU win to harvest,
+above) and no reuse across frames — there is no device win to harvest,
 and porting the wraparound/IndexError quirks into lax control flow
 would only obscure them. It therefore stays host NumPy per frame, but
 ingestion streams through ``iter_trajectory_blocks`` so host memory is

@@ -1,14 +1,15 @@
 """
 Shared matplotlib axis styling (reference:
 ``mdproptools/utilities/plots.py:12-41``): minor locators, {:g} tick
-formatting, inward ticks.
+formatting, inward ticks. matplotlib is imported on use, so the
+package itself needs none.
 """
-
-import matplotlib.ticker as ticker
-from matplotlib.ticker import AutoMinorLocator
 
 
 def set_axis(ax, axis="both"):
+    import matplotlib.ticker as ticker
+    from matplotlib.ticker import AutoMinorLocator
+
     fmt = ticker.FuncFormatter(lambda v, _: "{:g}".format(v))
     # AutoMinorLocator is linear-scale only (matplotlib warns and
     # ignores it on log axes — the reference trips this on msd_log.png);

@@ -94,7 +94,7 @@ def test_self_pair_masked_for_same_type(synthetic_traj, tmp_path):
 def test_spilled_h_matrices_bit_identical(synthetic_traj, tmp_path,
                                           monkeypatch):
     """Forcing the disk-spill path (H_SPILL_BYTES=1: every h-matrix goes
-    through the memmap, VERDICT r2 item 3) must reproduce the in-memory
+    through the memmap) must reproduce the in-memory
     C(t) bit-for-bit, including the self-pair-masked relation."""
     from mdproptools_tpu.dynamical import residence_time as rt_mod
 

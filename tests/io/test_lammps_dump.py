@@ -339,27 +339,3 @@ def test_native_parser_unterminated_ndarray_view():
     if out is None:  # native lib unavailable: nothing to pin
         return
     np.testing.assert_array_equal(out, [[1.0, 2.5e-3]])
-
-
-def test_warm_device_noop_on_cpu_and_single_thread():
-    """warm_device: no-op on the cpu backend; off-cpu it starts exactly
-    one daemon thread per process however many times it is called."""
-    import mdproptools_tpu.utilities.device as dev
-
-    # cpu backend (test env): no thread
-    dev.warm_device()
-    assert dev._thread is None
-    # pretend-accelerator: one thread, idempotent, joinable
-    import jax
-
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        dev.warm_device()
-        t1 = dev._thread
-        dev.warm_device(wait=True)
-        assert dev._thread is t1 and t1.daemon
-        assert not t1.is_alive()  # roundtrip ran (on the cpu jax here)
-    finally:
-        jax.default_backend = orig
-        dev._thread = None

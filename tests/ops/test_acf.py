@@ -116,27 +116,18 @@ def test_host_and_device_routes_agree():
 
 
 def test_route_host_policy():
-    """f64 on an accelerator and small fast-mode batches go to host;
-    big f32 batches stay on device; tracers always stay traced; the
-    cpu backend never host-routes (jnp IS host there)."""
+    """Small batches (either precision) go to host, big ones stay on
+    device, on every backend; tracers always stay traced."""
     import jax
 
     import mdproptools_tpu.ops.acf as acf
 
     a32 = np.zeros((4, 64), np.float32)
     a64 = np.zeros((4, 64), np.float64)
-    # cpu backend (the test env): never host-route
-    assert not acf._route_host(a32, 100)
-    assert not acf._route_host(a64, 100)
-    # pretend-accelerator decisions, via the monkeypatchable backend fn
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        assert acf._route_host(a64, 10**12)  # f64: always host
-        assert acf._route_host(a32, acf.HOST_FFT_MAX_ELEMS)  # small f32
-        assert not acf._route_host(a32, acf.HOST_FFT_MAX_ELEMS + 1)
-    finally:
-        jax.default_backend = orig
+    assert acf._route_host(a32, acf.HOST_FFT_MAX_ELEMS)
+    assert acf._route_host(a64, acf.HOST_FFT_MAX_ELEMS)
+    assert not acf._route_host(a32, acf.HOST_FFT_MAX_ELEMS + 1)
+    assert not acf._route_host(a64, acf.HOST_FFT_MAX_ELEMS + 1)
     # tracers never leave the traced program
     traced = {"hit": None}
 

@@ -26,6 +26,17 @@ def synthetic():
     return pos, codes, lengths
 
 
+@pytest.fixture(scope="module")
+def dense():
+    """1,500 atoms, 10 A cutoff: at fine bins enough pairs sit within a
+    float32 rounding of a bin edge that an FMA-contracted r^2 (XLA's CPU
+    default) moves some of them."""
+    rng = np.random.default_rng(1)
+    lengths = np.array([25.0, 23.0, 27.0])
+    pos = rng.uniform(0, 1, (1500, 3)) * lengths
+    return pos, rng.integers(1, 4, 1500), lengths
+
+
 def test_minimum_image_matches_reference_wrap():
     rng = np.random.default_rng(0)
     d = rng.uniform(-14.9, 14.9, size=(1000, 3))
@@ -75,6 +86,40 @@ def test_pair_hist_matches_rdf_loop(synthetic):
     )
     np.testing.assert_array_equal(full_got, full_want)
     np.testing.assert_array_equal(part_got, part_want)
+
+
+@pytest.mark.parametrize("bin_size", [0.1, 0.01])
+def test_pair_hist_float32_matches_rdf_loop(dense, bin_size):
+    """The float32 XLA path bins as the IEEE float32 reference loop does
+    (no FMA contraction)."""
+    pos, codes, lengths = dense
+    relations = [(1, 2), (2, 2), (3, 1)]
+    n_bins = int(10.0 / bin_size)
+    lay = pair_ops.build_type_layout(codes, 3)
+    pp = pair_ops.gather_padded(jnp.asarray(pos, jnp.float32), lay)
+    hist = np.asarray(pair_ops.pair_hist(
+        pp, pp, lay, lay, jnp.asarray(lengths, jnp.float32), bin_size,
+        n_bins, 10.0, True, dtype=jnp.float32))
+    full_want, part_want = oracle.rdf_loop(
+        pos, codes, lengths, 10.0, bin_size, relations, dtype=np.float32)
+    np.testing.assert_array_equal(hist.sum(axis=(0, 1)), full_want)
+    np.testing.assert_array_equal(
+        np.stack([hist[a - 1, b - 1] for a, b in relations]), part_want)
+
+
+def test_pair_count_float32_matches_cn_loop(dense):
+    pos, codes, lengths = dense
+    relations = [(1, 2), (2, 2), (3, 1)]
+    r_cuts = [2.5, 3.5, 4.5]
+    lay = pair_ops.build_type_layout(codes, 3)
+    pp = pair_ops.gather_padded(jnp.asarray(pos, jnp.float32), lay)
+    got = np.asarray(pair_ops.pair_count_within(
+        pp, pp, lay, lay, jnp.asarray(lengths, jnp.float32),
+        np.asarray(relations), np.asarray(r_cuts), exclude_self=True,
+        dtype=jnp.float32))
+    want = oracle.cn_loop(pos, codes, lengths, r_cuts, relations,
+                          dtype=np.float32)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_pair_count_matches_cn_loop(synthetic):

@@ -5,7 +5,7 @@ partial counting, exact CN cutoffs, per-frame normalize-then-average).
 
 These are written from the documented behavior of
 ``/root/reference/mdproptools/structural/rdf_cn.py`` (SURVEY.md section
-2.2/3.1) and serve as the parity target for the TPU implementation: the
+2.2/3.1) and serve as the parity target for this implementation: the
 reference itself cannot run here (pymatgen/numba are not installed), so
 tests assert device results == oracle results in float64.
 """
@@ -13,10 +13,12 @@ tests assert device results == oracle results in float64.
 import numpy as np
 
 
-def min_image(d, L):
+def min_image(d, L, dtype=np.float64):
     """Single-wrap minimum image, the reference's branch semantics
-    (rdf_cn.py:50-55): wrap by +-L only when |d| > L/2."""
-    d = np.array(d, np.float64)
+    (rdf_cn.py:50-55): wrap by +-L only when |d| > L/2. ``dtype``
+    float32 gives the same rule in IEEE float32 arithmetic."""
+    d = np.array(d, dtype)
+    L = dtype(L)
     over = d > L / 2
     under = d < -L / 2
     d[over] -= L
@@ -32,20 +34,26 @@ def rsq_row(head, others, lengths):
     return np.sum(d * d, axis=1)
 
 
-def _block_rsq(pos_block, pos, lengths):
+def _block_rsq(pos_block, pos, lengths, dtype=np.float64):
     """(B, N) squared min-image distances; elementwise ops identical to
-    the per-row form, so results are bit-equal to the reference loop."""
-    d = pos_block[:, None, :] - pos[None, :, :]
+    the per-row form, so results are bit-equal to the reference loop.
+    Summed (dx^2 + dy^2) + dz^2, each operation rounded in ``dtype``."""
+    d = (np.asarray(pos_block, dtype)[:, None, :]
+         - np.asarray(pos, dtype)[None, :, :])
     for ax in range(3):
-        d[:, :, ax] = min_image(d[:, :, ax], lengths[ax])
-    return np.sum(d * d, axis=2)
+        d[:, :, ax] = min_image(d[:, :, ax], lengths[ax], dtype)
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+        + d[..., 2] * d[..., 2]
 
 
-def rdf_loop(pos, codes, lengths, r_cut, bin_size, relations, block=256):
+def rdf_loop(pos, codes, lengths, r_cut, bin_size, relations, block=256,
+             dtype=np.float64):
     """Upper-triangle RDF loop: full histogram counts 2 per pair, partial
     counts both orientations (rdf_cn.py:73-97). Vectorized in row blocks;
-    float64 math identical to the reference's per-row loop. Returns
-    (full (K,), part (R, K))."""
+    float64 math identical to the reference's per-row loop (``dtype``
+    float32: the same loop in IEEE float32, the reference for the
+    float32 pair paths; a pair whose float32 bin rounds up to n_bins is
+    dropped). Returns float64 counts (full (K,), part (R, K))."""
     n_bins = int(r_cut / bin_size)
     full = np.zeros(n_bins)
     part = np.zeros((len(relations), n_bins))
@@ -53,36 +61,38 @@ def rdf_loop(pos, codes, lengths, r_cut, bin_size, relations, block=256):
     idx = np.arange(n)
     for s in range(0, n, block):
         e = min(s + block, n)
-        rsq = _block_rsq(pos[s:e], pos, lengths)
-        upper = idx[None, :] > idx[s:e, None]
-        keep = (rsq < r_cut**2) & upper
+        # columns from s on: the upper triangle never looks further left
+        rsq = _block_rsq(pos[s:e], pos[s:], lengths, dtype)
+        upper = idx[None, s:] > idx[s:e, None]
+        keep = (rsq < dtype(r_cut**2)) & upper
         bi, bj = np.nonzero(keep)
-        bins = (np.sqrt(rsq[bi, bj]) / bin_size).astype(np.int64)
-        ci = codes[s + bi]
-        cj = codes[bj]
-        np.add.at(full, bins, 2)
+        bins = (np.sqrt(rsq[bi, bj]) / dtype(bin_size)).astype(np.int64)
+        ok = bins < n_bins
+        bins, ci, cj = bins[ok], codes[s + bi[ok]], codes[s + bj[ok]]
+        full += 2 * np.bincount(bins, minlength=n_bins)
         for r, (a, b) in enumerate(relations):
-            m = (ci == a) & (cj == b)
-            np.add.at(part[r], bins[m], 1)
-            m = (ci == b) & (cj == a)
-            np.add.at(part[r], bins[m], 1)
+            m = ((ci == a) & (cj == b)) | ((ci == b) & (cj == a))
+            # a == b: both orientations match, so 2 per pair
+            part[r] += (1 + (a == b)) * np.bincount(bins[m], minlength=n_bins)
     return full, part
 
 
-def cn_loop(pos, codes, lengths, r_cuts, relations, block=256):
+def cn_loop(pos, codes, lengths, r_cuts, relations, block=256,
+            dtype=np.float64):
     """Upper-triangle CN loop with per-relation exact cutoffs
-    (rdf_cn.py:100-119). Returns (R,) counts."""
+    (rdf_cn.py:100-119), in float64 or IEEE float32 (``dtype``).
+    Returns (R,) counts."""
     counts = np.zeros(len(relations))
     n = pos.shape[0]
     idx = np.arange(n)
     for s in range(0, n, block):
         e = min(s + block, n)
-        rsq = _block_rsq(pos[s:e], pos, lengths)
-        upper = idx[None, :] > idx[s:e, None]
+        rsq = _block_rsq(pos[s:e], pos[s:], lengths, dtype)
+        upper = idx[None, s:] > idx[s:e, None]
         ci = codes[s:e, None]
-        cj = codes[None, :]
+        cj = codes[None, s:]
         for r, (a, b) in enumerate(relations):
-            keep = (rsq < r_cuts[r] ** 2) & upper
+            keep = (rsq < dtype(r_cuts[r] ** 2)) & upper
             counts[r] += np.sum(keep & (ci == a) & (cj == b))
             counts[r] += np.sum(keep & (ci == b) & (cj == a))
     return counts

@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import Mesh
 
 from mdproptools_tpu.ops import pairs as pair_ops
 from mdproptools_tpu.parallel import (
@@ -98,50 +99,56 @@ def test_sharded_charge_flux_matches_single(synthetic):
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
 
 
-def test_sharded_triangle_matches_single():
-    """Row-sharded TRIANGLE histogram (cyclic-half rule + per-shard
-    mirroring, Pallas interpret mode) on the virtual mesh must equal the
-    single-device scatter result exactly."""
-    import numpy as np
-
-    from mdproptools_tpu.ops import pairs as pair_ops
-    from mdproptools_tpu.parallel import make_mesh, sharded_rdf_hist
-
-    rng = np.random.default_rng(31)
-    T, n, box = 4, 700, 14.0
-    pos = rng.uniform(0, box, (T, n, 3)).astype(np.float32)
-    codes = rng.integers(1, 4, n)
+def _kernel_want(pos, codes, lengths, relations, dtype, with_full=True):
     lay = pair_ops.build_type_layout(codes, 3)
     pp = pair_ops.gather_padded(jnp.asarray(pos), lay)
-    lengths = np.full((T, 3), box, np.float32)
-    mesh = make_mesh(n_frames_axis=4, n_atoms_axis=2)
-    got = np.asarray(sharded_rdf_hist(
-        pp, lengths, lay, bin_size=0.1, n_bins=128, r_cut=6.0,
-        mesh=mesh, dtype=jnp.float32, triangle=True, method="pallas",
-        interpret=True,
-    ))
-    want = 0
-    for t in range(T):
-        want = want + np.asarray(pair_ops.pair_hist(
+    want_full = want_rels = 0
+    for t in range(pos.shape[0]):
+        hist = pair_ops.pair_hist(
             pp[t], pp[t], lay, lay, jnp.asarray(lengths[t]), 0.1, 128,
-            6.0, True, dtype=jnp.float32, method="scatter"))
-    np.testing.assert_array_equal(got, want)
+            6.0, True, dtype=dtype)
+        wf, wr = pair_ops.project_relations(hist, relations, with_full)
+        if with_full:
+            want_full = want_full + np.asarray(wf)
+        want_rels = want_rels + np.asarray(wr)
+    return want_full, want_rels
+
+
+def test_sharded_triangle_matches_single():
+    """Row-sharded TRIANGLE kernel (row tile <= column tile across
+    shards, Pallas interpret mode) in float64 on a (frames, atoms) =
+    (2, 4) mesh must equal the single-device float64 XLA histogram
+    exactly, without the full g(r) block."""
+    from mdproptools_tpu.parallel import sharded_rdf_relations
+
+    rng = np.random.default_rng(31)
+    T, n, box = 2, 700, 14.0
+    pos = rng.uniform(0, box, (T, n, 3))
+    codes = rng.integers(1, 4, n)
+    lengths = np.full((T, 3), box)
+    relations = np.array([[1, 2], [2, 1], [3, 3]])
+    mesh = make_mesh(n_frames_axis=2, n_atoms_axis=4)
+    full, rels = sharded_rdf_relations(
+        jnp.asarray(pos), codes - 1, relations - 1, lengths,
+        bin_size=0.1, n_bins=128, r_cut=6.0, mesh=mesh, with_full=False,
+        dtype=jnp.float64, interpret=True,
+    )
+    assert full is None
+    _, want_rels = _kernel_want(pos, codes, lengths, relations,
+                                jnp.float64, with_full=False)
+    np.testing.assert_array_equal(np.asarray(rels), want_rels)
 
 
 def test_sharded_rdf_relations_matches_single():
-    """Frame+row-sharded large-N fast path (ORB sort + relation kernel,
+    """Frame+row-sharded kernel path (ORB sort + tile cull + triangle,
     interpret mode) on the virtual mesh must equal the single-device
     scatter projection exactly."""
-    import numpy as np
-
-    from mdproptools_tpu.ops import pairs as pair_ops
-    from mdproptools_tpu.parallel import make_mesh, sharded_rdf_relations
+    from mdproptools_tpu.parallel import sharded_rdf_relations
 
     rng = np.random.default_rng(33)
     T, n, box = 4, 700, 14.0
     pos = rng.uniform(0, box, (T, n, 3)).astype(np.float32)
     codes = rng.integers(1, 4, n)
-    lay = pair_ops.build_type_layout(codes, 3)
     lengths = np.full((T, 3), box, np.float32)
     relations = np.array([[1, 2], [3, 3]])
     mesh = make_mesh(n_frames_axis=4, n_atoms_axis=2)
@@ -150,16 +157,8 @@ def test_sharded_rdf_relations_matches_single():
         bin_size=0.1, n_bins=128, r_cut=6.0, mesh=mesh, with_full=True,
         dtype=jnp.float32, interpret=True,
     )
-    pp = pair_ops.gather_padded(jnp.asarray(pos), lay)
-    want_full = 0
-    want_rels = 0
-    for t in range(T):
-        hist = pair_ops.pair_hist(
-            pp[t], pp[t], lay, lay, jnp.asarray(lengths[t]), 0.1, 128,
-            6.0, True, dtype=jnp.float32, method="scatter")
-        wf, wr = pair_ops.project_relations(hist, relations, True)
-        want_full = want_full + np.asarray(wf)
-        want_rels = want_rels + np.asarray(wr)
+    want_full, want_rels = _kernel_want(pos, codes, lengths, relations,
+                                        jnp.float32)
     np.testing.assert_array_equal(np.asarray(full), want_full)
     np.testing.assert_array_equal(np.asarray(rels), want_rels)
 
@@ -198,16 +197,15 @@ def test_entry_point_frame_mesh(dump_pattern, monkeypatch):
                                rtol=1e-12, atol=0)
 
 
-def test_entry_point_2d_mesh_rel_kernel(tmp_path, monkeypatch):
-    """calc_atomic_rdf pinned to a ("frames", "atoms") mesh must route
-    through the frame+row-sharded relation kernel (the large-N fast
-    path, VERDICT r2 item 4a) and match the single-device rel-kernel
-    result to f32 summation-reorder tolerance."""
-    import sys
-
-    sys.path.insert(0, "/root/repo/tests")
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2), (4, 2)])
+def test_entry_point_2d_mesh_rel_kernel(tmp_path, monkeypatch, shape):
+    """calc_atomic_rdf pinned to a ("frames",) or ("frames", "atoms")
+    mesh on the kernel path (interpret mode on the virtual CPU devices)
+    must match the single-device kernel result; with an atoms axis it
+    must route through the frame+row-sharded runner."""
     from helpers import write_traj
 
+    from mdproptools_tpu.ops import backend
     from mdproptools_tpu.structural import rdf_cn
 
     rng = np.random.default_rng(61)
@@ -223,26 +221,33 @@ def test_entry_point_2d_mesh_rel_kernel(tmp_path, monkeypatch):
     kw = dict(r_cut=6.0, bin_size=0.1, num_types=3, mass=[1.0, 2.0, 3.0],
               partial_relations=[[1, 3], [2, 3]], save_mode=False,
               precision="fast")
-    monkeypatch.setattr(rdf_cn, "_FORCE_KERNEL", "rel")
+    monkeypatch.setattr(backend, "_FORCE", "gpu")
     rdf_cn._STEP_CACHE.clear()
     want = rdf_cn.calc_atomic_rdf(filename=pattern, **kw)
 
-    mesh = make_mesh(n_frames_axis=4, n_atoms_axis=2)
+    frames_ax, atoms_ax = shape
+    devs = np.asarray(jax.devices()[:frames_ax * atoms_ax])
+    if atoms_ax == 1:
+        mesh = Mesh(devs, axis_names=("frames",))
+    else:
+        mesh = Mesh(devs.reshape(frames_ax, atoms_ax),
+                    axis_names=("frames", "atoms"))
     rdf_cn.set_mesh(mesh)
     try:
         rdf_cn._STEP_CACHE.clear()
         got = rdf_cn.calc_atomic_rdf(filename=pattern, **kw)
-        # the row-sharded relation runner must actually have engaged
         engaged = any(
             any(isinstance(k, tuple) and k and k[0] == "rel-sharded"
                 for k in entry[-1])
             for entry in rdf_cn._STEP_CACHE.values())
-        assert engaged, "2-D mesh did not route through the sharded " \
-            "relation runner"
+        assert engaged == (atoms_ax > 1), "wrong runner for the mesh"
     finally:
         rdf_cn.set_mesh(None)
+        rdf_cn._STEP_CACHE.clear()
+    # float64 exact-bins counts; only the psum order of the normalized
+    # float64 rows differs
     np.testing.assert_allclose(got.to_numpy(), want.to_numpy(),
-                               rtol=2e-5, atol=1e-8)
+                               rtol=1e-12, atol=0)
 
 
 def test_set_mesh_validates_axes():
@@ -263,10 +268,7 @@ def test_set_mesh_validates_axes():
 
 def test_sweep_rdf_frames_mesh(tmp_path, monkeypatch):
     """sweep_rdf's single compiled block program must frame-shard over
-    the active mesh (VERDICT r2 item 4b) with exact f64 parity."""
-    import sys
-
-    sys.path.insert(0, "/root/repo/tests")
+    the active mesh with exact f64 parity."""
     from helpers import write_traj
 
     from mdproptools_tpu.parallel.sweep import sweep_rdf

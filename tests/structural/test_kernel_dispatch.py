@@ -1,15 +1,16 @@
-"""Production kernel-dispatch branches of ``rdf_cn`` driven on CPU.
+"""Dispatch of the ``rdf_cn`` pair paths, driven on CPU.
 
-The TPU fast paths (`use_rel`, type-block pallas, the CN relation-count
-kernel) normally engage only on a real accelerator; the `_FORCE_KERNEL`
-hook forces each branch with the Pallas kernels in interpreter mode, so
-the dispatch wiring (per-frame ORB sort, relation projection, per-frame
-normalization) is pinned against the scatter path bit-for-bit."""
+The GPU pair kernel normally engages only on a card; forcing
+``ops.backend._FORCE = "gpu"`` runs it in Pallas interpret mode, so the
+kernel-path wiring (per-frame ORB sort, relation projection, per-frame
+normalization, float64 exact binning) is pinned against the plain XLA
+path bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from mdproptools_tpu.ops import backend
 from mdproptools_tpu.structural import rdf_cn
 
 RELS = np.array([[1, 2], [3, 3]])
@@ -32,16 +33,16 @@ def _run(pos, codes, lengths, counts, **kw):
         exclude_self=True, with_full=True, dtype=jnp.float32, **kw)
 
 
-@pytest.mark.parametrize("forced", ["rel", "type-block"])
-def test_forced_kernel_matches_scatter(system, forced, monkeypatch):
-    # exact_bins=False: the plain-f32 rel kernel is bit-equal to the
-    # f32 scatter path (the exact-bins upgrade is pinned separately
-    # by test_forced_rel_exact_bins_matches_strict)
+@pytest.mark.parametrize("spatial_sort", [True, False])
+def test_forced_kernel_matches_scatter(system, spatial_sort, monkeypatch):
+    # exact_bins=False: the float32 kernel is bit-equal to the float32
+    # XLA path (the exact-bins upgrade is pinned separately by
+    # test_forced_rel_exact_bins_matches_strict)
     pos, codes, lengths, counts = system
     want_full, want_rels = _run(pos, codes, lengths, counts)
-    monkeypatch.setattr(rdf_cn, "_FORCE_KERNEL", forced)
+    monkeypatch.setattr(backend, "_FORCE", "gpu")
     got_full, got_rels = _run(pos, codes, lengths, counts,
-                              spatial_sort=True, exact_bins=False)
+                              spatial_sort=spatial_sort, exact_bins=False)
     np.testing.assert_array_equal(np.asarray(got_full),
                                   np.asarray(want_full))
     np.testing.assert_array_equal(np.asarray(got_rels),
@@ -49,37 +50,35 @@ def test_forced_kernel_matches_scatter(system, forced, monkeypatch):
 
 
 def test_forced_rel_exact_bins_matches_strict(system, monkeypatch):
-    """The flagship exactness contract: fast mode through the exact-bins
-    rel path returns BIT-EQUAL g(r) to strict (float64) mode — every
-    pair binned as the f64 reference loop, normalization in f64 on
-    host."""
+    """The exactness contract: fast mode through the kernel's exact-bins
+    path returns BIT-EQUAL g(r) to strict (float64) mode — every pair
+    binned as the float64 reference loop, normalization in float64."""
     pos, codes, lengths, counts = system
     strict_full, strict_rels = rdf_cn._rdf_mean(
         pos, codes, 3, lengths, 0.1, 128, 6.0, RELS, counts, counts,
         exclude_self=True, with_full=True, dtype=jnp.float64)
-    monkeypatch.setattr(rdf_cn, "_FORCE_KERNEL", "rel")
+    monkeypatch.setattr(backend, "_FORCE", "gpu")
     got_full, got_rels = _run(pos, codes, lengths, counts,
-                              spatial_sort=True, exact_bins=True)
+                              exact_bins=True)
     np.testing.assert_array_equal(np.asarray(got_full),
                                   np.asarray(strict_full))
     np.testing.assert_array_equal(np.asarray(got_rels),
                                   np.asarray(strict_rels))
     # the plain f32 path does NOT reach strict bit-equality (vacuity)
-    got32_full, _ = _run(pos, codes, lengths, counts,
-                         spatial_sort=True, exact_bins=False)
+    got32_full, _ = _run(pos, codes, lengths, counts, exact_bins=False)
     assert np.any(np.asarray(got32_full) != np.asarray(strict_full))
 
 
 def test_exact_bins_true_raises_off_path(system):
     """exact_bins=True must refuse paths it cannot make exact (here:
-    the scatter policy on the CPU backend)."""
+    the plain XLA path on the CPU backend)."""
     pos, codes, lengths, counts = system
     with pytest.raises(ValueError, match="exact_bins"):
         _run(pos, codes, lengths, counts, exact_bins=True)
 
 
 def test_forced_rel_cross_layout_matches_scatter(system, monkeypatch):
-    """Cross-layout (atom vs COM-like columns) rel-kernel dispatch."""
+    """Cross-layout (atom vs COM-like columns) kernel dispatch."""
     pos, codes, lengths, counts = system
     rng = np.random.default_rng(43)
     m = 300
@@ -97,8 +96,8 @@ def test_forced_rel_cross_layout_matches_scatter(system, monkeypatch):
             dtype=jnp.float32, **kw, **extra)
 
     _, want = run()
-    monkeypatch.setattr(rdf_cn, "_FORCE_KERNEL", "rel")
-    _, got = run(spatial_sort=True)
+    monkeypatch.setattr(backend, "_FORCE", "gpu")
+    _, got = run(exact_bins=False)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
@@ -125,30 +124,11 @@ def test_program_cache_reuses_block_runner(system):
     np.testing.assert_array_equal(np.asarray(full_c), np.asarray(full_a))
 
 
-def test_rdf_policy_follows_box_volume():
-    """The dispatch policy must re-select the kernel as the box density
-    changes: a box large relative to r_cut keeps the rel kernel's tile
-    cull effective (kept_est < 2.5), a severely compressed box does
-    not (the unmeasured small-dense regime falls back to type-block)."""
-    n = 50_000
-    # large box: low kept_est -> rel kernel
-    use_rel, _, kept_big = rdf_cn._rdf_policy(
-        n, 90.0**3, 8.0, "auto", use_pallas=True, distinct_rels=True)
-    assert use_rel and kept_big < 2.5
-    # same system compressed: cull useless -> type-block kernel
-    use_rel2, _, kept_small = rdf_cn._rdf_policy(
-        n, 13.0**3, 8.0, "auto", use_pallas=True, distinct_rels=True)
-    assert not use_rel2 and kept_small > 2.5
-    # no pallas (strict/CPU) never engages either fast path
-    assert rdf_cn._rdf_policy(n, 90.0**3, 8.0, "auto", False, True)[0] \
-        is False
-
-
 def test_npt_policy_switch_streaming(monkeypatch):
     """An NPT-style stream whose box volume drifts across blocks must
-    re-evaluate the kernel policy per block (VERDICT r2 item 5) — and
-    the switching run must stay bit-identical to the single-kernel
-    scatter reference (integer counts, shared normalizer)."""
+    bin every block against its own box on the kernel path (per-frame
+    ORB sort, cull and minimum image) — bit-identical to the plain XLA
+    reference (integer counts, shared normalizer)."""
     rng = np.random.default_rng(53)
     n = 700
     codes = rng.integers(1, 4, n)
@@ -168,21 +148,9 @@ def test_npt_policy_switch_streaming(monkeypatch):
             exclude_self=True, with_full=True, dtype=jnp.float32,
             blocks=blocks(), **extra)
 
-    want_full, want_rels = run()  # scatter path, policy (False, False)
-
-    # volume-keyed fake policy: big box -> rel, shrunken box -> type-block
-    def fake_policy(n_at, v_min, r_cut, ss, use_pallas, distinct):
-        return (bool(use_pallas and v_min > 2000.0), False, v_min)
-
-    monkeypatch.setattr(rdf_cn, "_FORCE_KERNEL", "auto")
-    monkeypatch.setattr(rdf_cn, "_rdf_policy", fake_policy)
-    rdf_cn._policy_log.clear()
-    # exact_bins=False: this test pins that the POLICY SWITCH itself is
-    # exact across the f32 kernels (the rel block would otherwise run
-    # the exact-bins upgrade and differ from scatter at ~1e-7)
+    want_full, want_rels = run()
+    monkeypatch.setattr(backend, "_FORCE", "gpu")
     got_full, got_rels = run(exact_bins=False)
-    assert [p[0] for p in rdf_cn._policy_log] == [True, False], (
-        "policy did not follow the shrinking box across blocks")
     np.testing.assert_array_equal(np.asarray(got_full),
                                   np.asarray(want_full))
     np.testing.assert_array_equal(np.asarray(got_rels),
@@ -219,7 +187,21 @@ def test_forced_cn_kernel_matches_dense(system, monkeypatch):
     r_cuts = np.array([3.0, 4.5])
     want = rdf_cn._cn_mean(pos, codes, 3, lengths, RELS, r_cuts, counts,
                            exclude_self=True, dtype=jnp.float32)
-    monkeypatch.setattr(rdf_cn, "_FORCE_KERNEL", "rel")
+    monkeypatch.setattr(backend, "_FORCE", "gpu")
     got = rdf_cn._cn_mean(pos, codes, 3, lengths, RELS, r_cuts, counts,
                           exclude_self=True, dtype=jnp.float32)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.gpu
+def test_card_fast_rdf_bit_equal_to_strict(dump_pattern, gpu):
+    """On the card, fast calc_atomic_rdf (default exact bins) returns the
+    strict float64 g(r) bit for bit."""
+    kw = dict(r_cut=10.0, bin_size=0.05, num_types=9,
+              mass=[16.0, 12.01, 1.008, 14.01, 32.06, 16.0, 12.01, 19.0,
+                    24.305],
+              partial_relations=[[8, 8], [1, 8]], filename=dump_pattern,
+              save_mode=False)
+    fast = rdf_cn.calc_atomic_rdf(precision="fast", **kw)
+    strict = rdf_cn.calc_atomic_rdf(precision="strict", **kw)
+    np.testing.assert_array_equal(fast.to_numpy(), strict.to_numpy())

@@ -266,15 +266,15 @@ def test_pad_block_targets_steady_shape():
 
     pos = np.arange(2 * 5 * 3, dtype=np.float64).reshape(2, 5, 3)
     lens = np.ones((2, 3))
-    out, _, lens_p, w, _ = _pad_block(pos, None, lens, 1, target=7)
+    out, _, lens_p, w = _pad_block(pos, None, lens, 1, target=7)
     assert out.shape[0] == 7 and lens_p.shape[0] == 7
     assert w.tolist() == [1, 1, 0, 0, 0, 0, 0]
     assert (out[2:] == pos[:1]).all()
     # target rounds up to the mesh multiple
-    out, _, _, w, _ = _pad_block(pos, None, lens, 4, target=7)
+    out, _, _, w = _pad_block(pos, None, lens, 4, target=7)
     assert out.shape[0] == 8 and w.sum() == 2
     # no target, no mesh: unchanged
-    out, _, _, w, _ = _pad_block(pos, None, lens, 1)
+    out, _, _, w = _pad_block(pos, None, lens, 1)
     assert out.shape[0] == 2 and w.sum() == 2
 
 

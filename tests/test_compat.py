@@ -63,9 +63,9 @@ assert canonical.__name__ == "mdproptools_tpu.structural.rdf_cn"
 assert canonical.__spec__.name == "mdproptools_tpu.structural.rdf_cn"
 
 # state set through one name is visible through the other
-canonical._FORCE_KERNEL = "compat-probe"
-assert aliased._FORCE_KERNEL == "compat-probe"
-canonical._FORCE_KERNEL = None
+canonical._COMPAT_PROBE = "compat-probe"
+assert aliased._COMPAT_PROBE == "compat-probe"
+canonical._COMPAT_PROBE = None
 print("SHARED_OK")
 """
     out = subprocess.run(
